@@ -3,14 +3,14 @@
 Runs the EXACT measurement protocol of ldpc_jossy/py/ldpc_awgn.py:60-123
 (min_errors=100 block errors or max_blocks=400000 per point, adaptive
 SNR stepping SNR += sqrt(100/nblocks), sumprod2, 200 BP iterations) for a
-set of the 36 grid-engine configs (ldpc_awgn.py:6-43) on one TPU chip,
+set of the 36 grid-engine configs (ldpc_awgn.py:6-43) on one device,
 and overlays the measured waterfalls on the reference's own 2018 data
 (ldpc_jossy/data/results.csv) — the campaign the upstream README says
 "could take months on a single computer" (ldpc_jossy/README.md:158-161).
 
-Writes docs/artifacts/campaign_tpu.json (per-config wall-clock, blocks/s,
-every measured point, and the matched reference points) and
-docs/artifacts/campaign_tpu.png (ours vs 2018 overlay).
+Writes docs/artifacts/campaign.json (per-config wall-clock, blocks/s,
+every measured point, the matched reference points and the device they
+were measured on) and docs/artifacts/campaign.png (ours vs 2018 overlay).
 
 Usage: python benchmarks/campaign_repro.py [--sim-ids 5,20,...]
        [--points 24] [--max-blocks 400000] [--batch 512]
@@ -57,14 +57,9 @@ def main():
     ap.add_argument("--batch", type=int, default=512)
     args = ap.parse_args()
 
-    import jax
-    cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache", jax.default_backend())
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from ldpc_sparc_tpu.utils.compile_cache import enable_persistent_cache
+    from ldpc_sparc_tpu.utils.device import device_record
+    enable_persistent_cache()
     from ldpc_sparc_tpu.cli import SIM_PARAM_TABLE
     from ldpc_sparc_tpu.config import LdpcParams
     from ldpc_sparc_tpu.parallel.montecarlo import ldpc_waterfall_campaign
@@ -73,11 +68,11 @@ def main():
         "points": args.points, "min_errors": args.min_errors,
         "max_blocks": args.max_blocks, "batch": args.batch,
         "dectype": "sumprod2", "max_iters": 200}
-    out = {"platform": jax.devices()[0].platform, "protocol": protocol,
+    out = {"device": device_record(), "protocol": protocol,
            "configs": []}
     art_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "docs", "artifacts")
-    art_path = os.path.join(art_dir, "campaign_tpu.json")
+    art_path = os.path.join(art_dir, "campaign.json")
     total_blocks = total_wall = 0
     for sim_id in [int(s) for s in args.sim_ids.split(",")]:
         std, rate, z, pt = SIM_PARAM_TABLE[sim_id - 1]
@@ -156,8 +151,9 @@ def _write_artifact(out, art_path, plot):
     with open(art_path, "w") as f:
         json.dump(doc, f, indent=1)
     if plot:
-        _plot(doc, os.path.join(os.path.dirname(art_path),
-                                "campaign_tpu.png"))
+        from ldpc_sparc_tpu.io.results import plot_if_available
+        plot_if_available(_plot, os.path.join(os.path.dirname(art_path),
+                                              "campaign.png"), doc)
     return doc
 
 
@@ -181,7 +177,7 @@ def _plot(doc, png_path):
                         "s", mfc="none", mec=c, ms=4, lw=0)
     ax.set_xlabel("SNR (dB)")
     ax.set_ylabel("BER")
-    ax.set_title("LDPC waterfalls: this framework on one TPU chip (filled) "
+    ax.set_title("LDPC waterfalls: this framework (filled) "
                  "vs 2018 measured campaign (hollow)")
     ax.grid(True, which="both", alpha=0.3)
     ax.legend(fontsize=7)

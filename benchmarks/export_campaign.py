@@ -4,7 +4,8 @@ post-processing workflow.
 The 2018 pipeline is: grid jobs append tuple lines to data/results.txt ->
 src/results2csv.c -> py/disp_res.py multi-page PDF
 (ldpc_jossy/README.md:152-156). This script regenerates those exact
-artifacts from our measured campaign_tpu.json: a user of the reference
+artifacts from our measured campaign.json (benchmarks/campaign_repro.py):
+a user of the reference
 can point their own disp_res.py at the files this writes.
 
 Writes docs/artifacts/campaign_results.txt (the results.txt:1 tuple-line
@@ -30,7 +31,7 @@ def main():
     from ldpc_sparc_tpu.io.results import (record_to_tuple_line,
                                            records_to_csv, plot_waterfalls,
                                            plot_standard_comparison)
-    doc = json.load(open(os.path.join(ART, "campaign_tpu.json")))
+    doc = json.load(open(os.path.join(ART, "campaign.json")))
     records = []
     for cfg in doc["configs"]:
         for p in cfg["points"]:

@@ -33,6 +33,42 @@ ART = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs", "artifacts")
 
 
+def plot(name, doc, path):
+    """Waterfall vs state evolution from a <family>_sweep.json document."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    cfg, rows, thr = doc["config"], doc["rows"], doc["se_threshold_snr"]
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    floor = 0.1 / (cfg["trials_per_point"] * cfg["L"])
+    xs = [r["snr"] for r in rows]
+    ax.semilogy(xs, [max(r["ser"], floor) for r in rows], "o-",
+                label="measured SER")
+    ax.semilogy(xs, [max(r["ber"], floor) for r in rows], "s-",
+                label="measured BER")
+    if cfg.get("modulated"):
+        ax.semilogy(xs, [max(r["ler"], floor) for r in rows], "v--",
+                    label="LER (wrong location)")
+        ax.semilogy(xs, [max(r["ver"], floor) for r in rows], "^--",
+                    label="VER (wrong PSK value)")
+    ax2 = ax.twinx()
+    ax2.plot(xs, [r["se_psi_final"] for r in rows], "d--", color="gray",
+             label="SE psi_final")
+    ax2.set_ylabel("SE fixed-point NMSE psi")
+    if thr is not None:
+        ax.axvline(thr, ls=":", color="k", lw=1,
+                   label=f"SE threshold ({thr:.2f})")
+    ax.set_xlabel("snr = P / awgn_var (linear)")
+    ax.set_ylabel("error rate")
+    ax.set_title(f"{name}: waterfall vs state evolution")
+    ax.grid(True, which="both", alpha=0.3)
+    lines, labels = ax.get_legend_handles_labels()
+    l2, lb2 = ax2.get_legend_handles_labels()
+    ax.legend(lines + l2, labels + lb2, fontsize=8)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+
+
 def sweep(name, params, dec, snrs, trials, t_max, se_samples=4000,
           se_t_max=300):
     # se_t_max >> decoder t_max: the SE threshold is a property of the SE
@@ -43,6 +79,8 @@ def sweep(name, params, dec, snrs, trials, t_max, se_samples=4000,
     import jax
     from ldpc_sparc_tpu import sparc_se
     from ldpc_sparc_tpu.parallel.montecarlo import sparc_mc_counts
+    from ldpc_sparc_tpu.io.results import plot_if_available
+    from ldpc_sparc_tpu.utils.device import device_record
 
     rows = []
     t0 = time.perf_counter()
@@ -77,43 +115,13 @@ def sweep(name, params, dec, snrs, trials, t_max, se_samples=4000,
     if params.spatially_coupled:
         cfg.update(spatially_coupled=True, omega=params.omega,
                    Lambda=params.Lambda)
-    out = {"platform": __import__("jax").devices()[0].platform,
+    out = {"device": device_record(),
            "config": cfg, "wall_s": round(wall, 1),
            "se_threshold_snr": thr, "rows": rows}
     with open(os.path.join(ART, f"{name}.json"), "w") as f:
         json.dump(out, f, indent=1)
 
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    fig, ax = plt.subplots(figsize=(7, 4.5))
-    floor = 0.1 / (trials * params.L)
-    xs = [r["snr"] for r in rows]
-    ax.semilogy(xs, [max(r["ser"], floor) for r in rows], "o-",
-                label="measured SER")
-    ax.semilogy(xs, [max(r["ber"], floor) for r in rows], "s-",
-                label="measured BER")
-    if params.modulated:
-        ax.semilogy(xs, [max(r["ler"], floor) for r in rows], "v--",
-                    label="LER (wrong location)")
-        ax.semilogy(xs, [max(r["ver"], floor) for r in rows], "^--",
-                    label="VER (wrong PSK value)")
-    ax2 = ax.twinx()
-    ax2.plot(xs, [r["se_psi_final"] for r in rows], "d--", color="gray",
-             label="SE psi_final")
-    ax2.set_ylabel("SE fixed-point NMSE psi")
-    if thr is not None:
-        ax.axvline(thr, ls=":", color="k", lw=1,
-                   label=f"SE threshold ({thr:.2f})")
-    ax.set_xlabel("snr = P / awgn_var (linear)")
-    ax.set_ylabel("error rate")
-    ax.set_title(f"{name}: waterfall vs state evolution")
-    ax.grid(True, which="both", alpha=0.3)
-    lines, labels = ax.get_legend_handles_labels()
-    l2, lb2 = ax2.get_legend_handles_labels()
-    ax.legend(lines + l2, labels + lb2, fontsize=8)
-    fig.tight_layout()
-    fig.savefig(os.path.join(ART, f"{name}.png"), dpi=120)
+    plot_if_available(plot, os.path.join(ART, f"{name}.png"), name, out)
     print(json.dumps({"artifact": name, "wall_s": out["wall_s"],
                       "se_threshold_snr": thr}))
     return out

@@ -3,7 +3,7 @@
 The north-star benchmark config (plain SPARC, L=1024, M=512, R=1.0;
 BASELINE.json config 1) is gated at a single operating point by bench.py
 (BER 0). This artifact documents the whole waterfall: measured BER/SER
-across the threshold region on the chip, overlaid with the
+across the threshold region on the GPU, overlaid with the
 state-evolution prediction (models/state_evolution.py; the reference's
 validation medium, sparc_public/sparc_demo.ipynb) — the SE fixed point
 psi_final flips from ~1 to ~0 at the predicted threshold, and the
@@ -28,6 +28,53 @@ ART = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs", "artifacts")
 
 
+def plot(doc, path):
+    """Waterfall vs state evolution from a flagship_sweep.json document."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    cfg, rows, deep_rows = doc["config"], doc["rows"], doc["deep_rows"]
+    thr = doc["se_threshold_snr"]
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    floor = 1.0 / (cfg["trials_per_point"] * cfg["L"])  # one section error
+    ax.semilogy([r["snr"] for r in rows],
+                [max(r["ser"], floor * 0.1) for r in rows], "o-",
+                label="measured SER")
+    ax.semilogy([r["snr"] for r in rows],
+                [max(r["ber"], floor * 0.1) for r in rows], "s-",
+                label="measured BER")
+    if deep_rows:
+        # zero-error deep points would be silently masked by semilogy;
+        # floor them at a tenth of one error in the deep bit budget
+        dfloor = 0.1 / deep_rows[0]["bits"]
+        ax.semilogy([r["snr"] for r in deep_rows],
+                    [max(r["ser"], dfloor) for r in deep_rows], "o--",
+                    mfc="none",
+                    label=f"deep SER ({deep_rows[0]['trials']} trials)")
+        ax.errorbar([r["snr"] for r in deep_rows],
+                    [max(r["ber"], dfloor) for r in deep_rows],
+                    yerr=[r["ber_ci95"] for r in deep_rows], fmt="s--",
+                    mfc="none", capsize=3,
+                    label="deep BER (95% CI)")
+    ax2 = ax.twinx()
+    ax2.plot([r["snr"] for r in rows], [r["se_psi_final"] for r in rows],
+             "^--", color="gray", label="SE psi_final")
+    ax2.set_ylabel("SE fixed-point NMSE psi")
+    if thr is not None:
+        ax.axvline(thr, ls=":", color="k", lw=1,
+                   label=f"SE threshold ({thr:.2f})")
+    ax.set_xlabel("snr = P / awgn_var (linear)")
+    ax.set_ylabel("error rate")
+    ax.set_title("Flagship config L=1024 M=512 R=1.0: measured waterfall "
+                 "vs state evolution")
+    ax.grid(True, which="both", alpha=0.3)
+    lines, labels = ax.get_legend_handles_labels()
+    l2, lb2 = ax2.get_legend_handles_labels()
+    ax.legend(lines + l2, labels + lb2, fontsize=8)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--platform", default=None)
@@ -45,6 +92,8 @@ def main():
     enable_persistent_cache()
     from ldpc_sparc_tpu import SparcParams, DecodeParams, sparc_se
     from ldpc_sparc_tpu.parallel.montecarlo import sparc_mc_counts
+    from ldpc_sparc_tpu.io.results import plot_if_available
+    from ldpc_sparc_tpu.utils.device import device_record
 
     params = SparcParams(P=15.0, R=1.0, L=1024, M=512)
     dec = DecodeParams(t_max=args.t_max)
@@ -106,7 +155,7 @@ def main():
 
     # SE-predicted threshold: first snr whose fixed point decodes
     thr = next((r["snr"] for r in rows if r["se_psi_final"] < 0.01), None)
-    out = {"platform": jax.devices()[0].platform,
+    out = {"device": device_record(),
            "config": {"P": params.P, "R": params.R, "L": params.L,
                       "M": params.M, "t_max": args.t_max,
                       "trials_per_point": args.trials},
@@ -116,47 +165,7 @@ def main():
     with open(os.path.join(ART, "flagship_sweep.json"), "w") as f:
         json.dump(out, f, indent=1)
 
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    fig, ax = plt.subplots(figsize=(7, 4.5))
-    floor = 1.0 / (args.trials * params.L)  # one section error
-    ax.semilogy([r["snr"] for r in rows],
-                [max(r["ser"], floor * 0.1) for r in rows], "o-",
-                label="measured SER")
-    ax.semilogy([r["snr"] for r in rows],
-                [max(r["ber"], floor * 0.1) for r in rows], "s-",
-                label="measured BER")
-    if deep_rows:
-        # zero-error deep points would be silently masked by semilogy;
-        # floor them at a tenth of one error in the deep bit budget
-        dfloor = 0.1 / deep_rows[0]["bits"]
-        ax.semilogy([r["snr"] for r in deep_rows],
-                    [max(r["ser"], dfloor) for r in deep_rows], "o--",
-                    mfc="none",
-                    label=f"deep SER ({deep_rows[0]['trials']} trials)")
-        ax.errorbar([r["snr"] for r in deep_rows],
-                    [max(r["ber"], dfloor) for r in deep_rows],
-                    yerr=[r["ber_ci95"] for r in deep_rows], fmt="s--",
-                    mfc="none", capsize=3,
-                    label="deep BER (95% CI)")
-    ax2 = ax.twinx()
-    ax2.plot([r["snr"] for r in rows], [r["se_psi_final"] for r in rows],
-             "^--", color="gray", label="SE psi_final")
-    ax2.set_ylabel("SE fixed-point NMSE psi")
-    if thr is not None:
-        ax.axvline(thr, ls=":", color="k", lw=1,
-                   label=f"SE threshold ({thr:.2f})")
-    ax.set_xlabel("snr = P / awgn_var (linear)")
-    ax.set_ylabel("error rate")
-    ax.set_title("Flagship config L=1024 M=512 R=1.0: measured waterfall "
-                 "vs state evolution")
-    ax.grid(True, which="both", alpha=0.3)
-    lines, labels = ax.get_legend_handles_labels()
-    l2, lb2 = ax2.get_legend_handles_labels()
-    ax.legend(lines + l2, labels + lb2, fontsize=8)
-    fig.tight_layout()
-    fig.savefig(os.path.join(ART, "flagship_sweep.png"), dpi=120)
+    plot_if_available(plot, os.path.join(ART, "flagship_sweep.png"), out)
     print(json.dumps({"wall_s": out["wall_s"],
                       "se_threshold_snr": thr}))
 

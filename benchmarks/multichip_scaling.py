@@ -1,13 +1,12 @@
-"""Multi-chip scaling evidence on the virtual 8-device CPU mesh
-(VERDICT round-1 item 9).
+"""Multi-device scaling evidence on the virtual 8-device CPU mesh.
 
-Real multi-chip TPU hardware is not available in this environment, so
-absolute step times here are NOT FLOP-meaningful. What this script documents
-*is* meaningful and mesh-shape-independent:
+Absolute step times on the virtual mesh are NOT FLOP-meaningful (the mesh
+paths on four real GPUs are exercised by `chip_smoke.py --four-cards`).
+What this script documents *is* meaningful and mesh-shape-independent:
 
   * the COMMUNICATION PATTERN — which XLA collectives the ('dp','sec')
     shard_map program lowers to, counted from the compiled HLO, per mesh
-    shape. On hardware these ride ICI; the counts and operand shapes fix
+    shape. The counts and operand shapes fix
     the per-iteration communication volume of the section-sharded AMP:
     one all-reduce of the replicated residual partials (n floats) per
     forward product + one all-reduce of the (Lr,) gamma matvec partials

@@ -51,6 +51,7 @@ def main():
     enable_persistent_cache()
     from ldpc_sparc_tpu import SparcParams, DecodeParams
     from ldpc_sparc_tpu.parallel.montecarlo import sparc_mc_counts
+    from ldpc_sparc_tpu.utils.device import device_record
 
     dec = DecodeParams(t_max=args.t_max)
     rows = []
@@ -72,7 +73,7 @@ def main():
             "info_bits_per_s": round(args.trials * p.bit_len / dt, 0)})
         print(json.dumps(rows[-1]), flush=True)
 
-    out = {"platform": jax.devices()[0].platform,
+    out = {"device": device_record(),
            "t_max": args.t_max, "rows": rows}
     with open(os.path.join(ART, "scale_probe.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -1,7 +1,7 @@
 """Multi-host Monte-Carlo smoke run.
 
 Launches the dp-sharded SPARC Monte-Carlo across multiple PROCESSES with
-`jax.distributed` — the same code path a real multi-host TPU pod uses
+`jax.distributed` — the same code path a real multi-host cluster uses
 (each host sees its local devices; `psum` counters reduce across the
 process boundary over the distributed runtime).
 

@@ -1,7 +1,7 @@
-"""ldpc_sparc_tpu: a TPU-native framework for Sparse Regression Codes (SPARCs),
+"""ldpc_sparc_tpu: a JAX framework for Sparse Regression Codes (SPARCs),
 IEEE 802.11n/802.16 LDPC codes, and their concatenation.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 repo SophieLangdon27/LDPC_SPARC (see SURVEY.md for the component inventory and
 file:line parity citations throughout the package).
 

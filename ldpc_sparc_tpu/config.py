@@ -1,6 +1,6 @@
 """Typed configuration for SPARC / LDPC / concatenated codes.
 
-TPU-native re-design of the reference's dict-based parameter plumbing
+Re-design of the reference's dict-based parameter plumbing
 (`check_code_params` / `check_decode_params`, sparc_public/sparc.py:77-170,
 and `param_calc` / `param_calc_semi_protected`, ldpc_sparc/param_calc.py:11-58).
 

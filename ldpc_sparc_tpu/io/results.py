@@ -231,6 +231,20 @@ def waterfall_metrics(rec: Tuple) -> dict:
     }
 
 
+def plot_if_available(plot_fn, out_path, *args) -> bool:
+    """Call plot_fn(*args, out_path) when matplotlib imports; otherwise
+    print one JSON line saying the plot was skipped. Returns whether the
+    plot was written."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(json.dumps({"plot_skipped": str(out_path),
+                          "reason": "matplotlib is not installed"}))
+        return False
+    plot_fn(*args, out_path)
+    return True
+
+
 def plot_waterfalls(records: Iterable[Tuple], out_path,
                     title: str = "LDPC BER waterfalls", metric: str = "ber"):
     """BER- (or BLER-) vs-Eb/N0 plot with Shannon-limit anchors

@@ -1,6 +1,6 @@
 """IEEE 802.11n / 802.16 LDPC code library.
 
-TPU-native counterpart of the reference `code` class
+Counterpart of the reference `code` class
 (ldpc_jossy/py/ldpc.py:4-503):
 
   * protograph tables from models/ldpc_tables.py (standard constants)
@@ -15,8 +15,8 @@ TPU-native counterpart of the reference `code` class
   * systematic encoder exploiting the dual-diagonal parity structure
     (ldpc.py:400-460), vectorized over z-bit super-symbols as static
     roll/XOR stages — jittable and vmappable over a batch of info words.
-  * decode: the z-structured JAX BP kernel (ops/bp.py) on TPU, or the C++
-    CPU oracle (native/) for bit-exact reference checking.
+  * decode: the z-structured JAX BP kernel (ops/bp.py), or the C++ CPU
+    oracle (native/) for bit-exact reference checking.
 """
 
 from __future__ import annotations
@@ -100,10 +100,10 @@ class LdpcCode:
 
         The reference encodes by z-bit super-symbol accumulation + back
         substitution — a long sequential chain of cyclic rolls, a poor shape
-        for the VPU. Encoding is linear over GF(2), so we run that chain
-        ONCE at build time on the K unit vectors (vectorized numpy) to get
-        the parity generator Gp (K, N-K); on device, encoding is then a
-        single MXU matmul `parity = (info @ Gp) mod 2`."""
+        for a vector machine. Encoding is linear over GF(2), so we run that
+        chain ONCE at build time on the K unit vectors (vectorized numpy) to
+        get the parity generator Gp (K, N-K); on device, encoding is then a
+        single matmul `parity = (info @ Gp) mod 2`."""
         proto, z, Kp, Mp = self.proto, self.z, self.Kp, self.Mp
         # systematic accumulation: p[j] = XOR_k roll(x[k], -proto[j,k])
         self._sys_edges = [(j, k, int(proto[j, k]))
@@ -124,7 +124,7 @@ class LdpcCode:
             for j in range(Mp - 1)]
         # parity generator: row i = parity bits of unit info word e_i.
         # 0/1 entries are exact in bfloat16 and each dot product is an
-        # integer <= K < 2^24, exact in the MXU's f32 accumulator.
+        # integer <= K < 2^24, exact in an f32 accumulator.
         assert self.K < (1 << 24), \
             "matmul encoder exactness requires K < 2^24 (f32 accumulator)"
         gp = self.parity_chain(np.eye(self.K, dtype=np.int64))
@@ -152,11 +152,13 @@ class LdpcCode:
     def encode(self, info: jnp.ndarray) -> jnp.ndarray:
         """Systematic encoding. info: (..., K) {0,1} -> (..., N).
 
-        One generator matmul on the MXU (see _prepare_encoder); output is
-        bit-identical to the reference's super-symbol chain (ldpc.py:400-460)
-        — asserted against `parity_chain` in tests/test_ldpc.py."""
+        One generator matmul (see _prepare_encoder); output is bit-identical
+        to the reference's super-symbol chain (ldpc.py:400-460) — asserted
+        against `parity_chain` in tests/test_ldpc.py."""
         info = jnp.asarray(info)
         assert info.shape[-1] == self.K
+        # bf16 0/1 inputs, f32 accumulation: every product and partial sum
+        # is an integer below 2^24, so the result is exact at any precision
         acc = jnp.matmul(info.astype(jnp.bfloat16), self._Gp,
                          preferred_element_type=jnp.float32)
         parity = acc.astype(jnp.int32) % 2
@@ -166,22 +168,16 @@ class LdpcCode:
     # decoders
     # ------------------------------------------------------------------
     def decode(self, ch: jnp.ndarray, max_itcount: int = 200,
-               dectype: str = "sumprod2", corr_factor: float = 0.7,
-               backend: str = "auto") -> BpResult:
+               dectype: str = "sumprod2",
+               corr_factor: float = 0.7) -> BpResult:
         """BP decode of channel LLRs (API of ldpc.py:463-490).
 
         ch: (..., N) LLRs. Returns (app, iterations).
-
-        backend: 'pallas' (single fused TPU kernel, messages resident in
-        VMEM across iterations — measured speedup vs the XLA path on
-        hardware in docs/artifacts/bp_pallas_tpu_check.json), 'xla'
-        (portable while-loop kernel), or 'auto' (pallas on TPU, xla
-        elsewhere; ops/bp.py default_bp_backend).
         """
         method = "minsum" if dectype == "minsum" else "sumprod"
         ch = jnp.asarray(ch, jnp.float32)
         return bp_decode(ch, self.graph, max_iters=max_itcount, method=method,
-                         corr_factor=corr_factor, backend=backend)
+                         corr_factor=corr_factor)
 
     def Lxor(self, L1: float, L2: float, corrflag: int = 1) -> float:
         """Pairwise LLR-XOR via the native oracle (API of ldpc.py:492-495)."""

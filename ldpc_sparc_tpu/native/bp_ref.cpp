@@ -1,6 +1,6 @@
 // Native CPU reference kernel for LDPC belief propagation.
 //
-// Float64 oracle used to validate the JAX/Pallas BP kernels, implementing
+// Float64 oracle used to validate the JAX BP kernel, implementing
 // the same flat Tanner-graph message passing as the reference C kernel
 // (ldpc_jossy/src/c_ldpc.c): variable-node sums read through an interleaver,
 // check-node updates via either the tanh product ("sumprod") or the

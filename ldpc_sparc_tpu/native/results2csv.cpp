@@ -1,6 +1,6 @@
 // Native results.txt -> results.csv converter.
 //
-// TPU-framework equivalent of the reference's src/results2csv.c (a small C
+// This framework's equivalent of the reference's src/results2csv.c (a small C
 // CLI that rewrites Python-tuple-formatted measurement lines as numeric CSV
 // rows, results2csv.c:48-74).  This is an independent implementation: a
 // tolerant tokenizer over tuple lines rather than a fixed fscanf pattern, so

@@ -1,6 +1,6 @@
 """LDPC belief propagation over the z-structured Tanner graph.
 
-TPU-native redesign of the reference's flat-graph C kernel
+Vectorized redesign of the reference's flat-graph C kernel
 (`sumprod` / `sumprod2` / `minsum`, ldpc_jossy/src/c_ldpc.c:32-381).
 
 Layout. IEEE 802.11n/802.16 codes are protograph codes: every nonzero
@@ -12,12 +12,16 @@ per protograph edge. Check (i, c) connects variable (j, (c + s) mod z), so
 the check-aligned <-> variable-aligned conversion is a *fixed permutation
 along the z axis*, precomputed at build time. One BP iteration is then:
 
-  variable update:  tot[j] = ch[j] + sum_{e: col(e)=j} c2v_var[e]     (VPU)
-                    v2c_var[e] = tot[col(e)] - c2v_var[e]             (VPU)
+  variable update:  tot[j] = ch[j] + sum_{e: col(e)=j} c2v_var[e]
+                    v2c_var[e] = tot[col(e)] - c2v_var[e]
   check update:     forward-backward Lxor chain along each check row's
                     padded edge list (the reference's Lxfb trellis,
                     c_ldpc.c:294-314) — max degree <= 24 unrolled steps of
                     elementwise Lxor over all (rows, z) lanes at once.
+
+The variable sum is a fixed-order gather-and-add over each column's edge
+list (ops/segments.py), not a scatter-add, so a decode is bit-reproducible
+on the GPU.
 
 The check-node operation is the numerically-stable pairwise LLR-XOR form
 (`Lxor`, c_ldpc.c:234-251): sign * min + two log1p corrections for
@@ -26,8 +30,9 @@ exactly the reference's `sumprod2`; the tanh-product `sumprod` variant is
 mathematically identical and exists here only through the same kernel.
 
 Early stopping (all parity checks satisfied, c_ldpc.c:95-106) is a masked
-convergence flag inside a fixed-length `lax.scan`; the returned iteration
-count matches the C kernel's (0 when the input already satisfies parity).
+per-codeword convergence flag inside a `lax.while_loop` that ends once every
+codeword has converged; the returned iteration count matches the C kernel's
+(0 when the input already satisfies parity).
 
 Everything vmaps over a leading batch of codewords; batched decode is the
 intended fast path (the Monte-Carlo and concatenated decoders batch blocks).
@@ -42,6 +47,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from .segments import segment_table, table_sum
 
 
 _BIG = 1e30  # padding LLR: Lxor identity element (certainly-even parity)
@@ -66,6 +73,7 @@ class TannerGraph:
     to_chk: np.ndarray      # (E, z) inverse permutation
     dc_max: int             # max check degree
     chk_edges: np.ndarray   # (Mp, dc_max) edge ids per check row, -1 padded
+    var_edges: np.ndarray   # (Np, dv_max) edge ids per column, -1 padded
 
     @classmethod
     def build(cls, proto: np.ndarray, z: int) -> "TannerGraph":
@@ -88,7 +96,8 @@ class TannerGraph:
                    edge_row=rr.astype(np.int32), edge_col=cc.astype(np.int32),
                    edge_shift=shifts.astype(np.int32),
                    to_var=to_var.astype(np.int32), to_chk=to_chk.astype(np.int32),
-                   dc_max=dc_max, chk_edges=chk_edges)
+                   dc_max=dc_max, chk_edges=chk_edges,
+                   var_edges=segment_table(cc, Np))
 
     @property
     def Nv(self) -> int:
@@ -107,8 +116,7 @@ def lxor(L1: jnp.ndarray, L2: jnp.ndarray, correction: bool) -> jnp.ndarray:
     """LLR of the XOR of two binary RVs given their LLRs.
 
     Min-sum core (product of signs, min of magnitudes) plus the two-term
-    correction that makes it exactly the sum-product rule. Elementwise; maps
-    to the VPU.
+    correction that makes it exactly the sum-product rule. Elementwise.
     """
     sgn = jnp.sign(L1) * jnp.sign(L2)
     sgn = jnp.where(sgn == 0.0, 1.0, sgn)
@@ -158,7 +166,7 @@ def _make_bp_iter(ch_blocks, g: TannerGraph, correction: bool, corr_factor):
     z, E, Mp, Np = g.z, g.E, g.Mp, g.Np
     B = ch_blocks.shape[-1]
     dtype = ch_blocks.dtype
-    edge_col = jnp.asarray(g.edge_col)
+    edge_col = g.edge_col
     to_var = jnp.asarray(g.to_var)[:, :, None]              # (E, z, 1)
     to_chk = jnp.asarray(g.to_chk)[:, :, None]
     chk_edges = jnp.asarray(g.chk_edges)                    # (Mp, dc_max)
@@ -171,8 +179,7 @@ def _make_bp_iter(ch_blocks, g: TannerGraph, correction: bool, corr_factor):
 
         # ---- variable node rule ("sum", c_ldpc.c:54-68) ----
         c2v_var = jnp.take_along_axis(c2v_chk, to_var, axis=1)  # (E, z, B)
-        tot = ch_blocks + jax.ops.segment_sum(c2v_var, edge_col,
-                                              num_segments=Np)  # (Np, z, B)
+        tot = ch_blocks + table_sum(c2v_var, g.var_edges)     # (Np, z, B)
         v2c_var = tot[edge_col] - c2v_var
         v2c_chk = jnp.take_along_axis(v2c_var, to_chk, axis=1)
         app_new = tot
@@ -209,13 +216,12 @@ def _bp_init(ch_blocks, g: TannerGraph, B: int):
 
 def _decode_lanes(ch: jnp.ndarray, g: TannerGraph, max_iters: int,
                   correction: bool, corr_factor: float) -> BpResult:
-    """Batched BP with the codeword batch on the LAST (lane) axis.
+    """Batched BP with the codeword batch on the LAST axis.
 
-    ch: (B, Nv). Internally everything is (..., z, B): the batch rides the
-    TPU's 128-wide vector lanes while z sits on sublanes — all message
-    updates are elementwise over full vectors, and the z-axis permutations /
-    edge gathers move whole lanes. (A batch-first layout puts z=27..81 on
-    the lanes and pads 4-5x, which also exploded TPU compile times.)
+    ch: (B, Nv). Internally everything is (..., z, B): all message updates
+    are elementwise over contiguous batch rows, and the z-axis permutations
+    and edge gathers move whole rows of B codewords. The layout is
+    inherited and not yet measured against batch-first on the GPU.
     """
     B = ch.shape[0]
     ch_blocks = jnp.moveaxis(ch.reshape(B, g.Np, g.z), 0, -1)  # (Np, z, B)
@@ -284,73 +290,16 @@ def bp_decode_trace(ch: jnp.ndarray, graph: TannerGraph, num_iters: int,
             it.reshape(batch_shape))
 
 
-_BP_BACKENDS = ("xla", "pallas", "pallas_interpret")
-
-
-def default_bp_backend() -> str:
-    """Backend the hot paths use when asked for 'auto': the fused Pallas
-    kernel on TPU (messages VMEM-resident across iterations — measured
-    faster than the XLA scan on hardware, docs/artifacts/
-    bp_pallas_tpu_check.json), the portable XLA kernel elsewhere.
-    Override with LDPC_SPARC_BP_BACKEND=xla|pallas|pallas_interpret.
-
-    CAVEAT (same as the FWHT knobs, ops/wht_pallas.py): callers read this
-    at TRACE time, so a jitted program cached before the env var changed
-    keeps its old routing. Set the env var before the first call of a
-    config, or pass backend= explicitly."""
-    import os
-    env = os.environ.get("LDPC_SPARC_BP_BACKEND")
-    if env:
-        if env not in _BP_BACKENDS:
-            raise ValueError(f"LDPC_SPARC_BP_BACKEND={env!r}; "
-                             f"expected one of {_BP_BACKENDS}")
-        return env
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
-
-
-def small_batch_bp_backend() -> str:
-    """Backend for few-lane BP calls (per-trial blocks inside a vmapped
-    decode): the XLA scan, which doesn't pad each call to a 128-lane tile
-    (round-4 measurement: 13.6 s vs 26.1 s per z=150 integrated sweep
-    point on TPU v5e; Monte-Carlo paths now avoid few-lane calls
-    entirely via decode_batch's cross-trial packing, models/concat.py —
-    the point costs 0.17 s there). An explicit LDPC_SPARC_BP_BACKEND
-    still wins, validated."""
-    import os
-    if os.environ.get("LDPC_SPARC_BP_BACKEND"):
-        return default_bp_backend()
-    return "xla"
-
-
 def bp_decode(ch: jnp.ndarray, graph: TannerGraph, max_iters: int = 200,
-              method: str = "sumprod", corr_factor: float = 0.7,
-              backend: str = "auto") -> BpResult:
+              method: str = "sumprod", corr_factor: float = 0.7) -> BpResult:
     """Decode channel LLRs.
 
     ch       : (..., Nv) channel log-likelihood ratios (LLR > 0 => bit 0)
     method   : 'sumprod' (exact, the reference's sumprod/sumprod2) or
                'minsum' (approximate with correction factor, c_ldpc.c:339-381)
-    backend  : 'auto' (pallas on TPU, xla elsewhere), 'pallas', 'xla', or
-               'pallas_interpret' (CPU-side kernel semantics check)
     Returns a-posteriori LLRs and per-codeword iteration counts.
     """
     assert method in ("sumprod", "sumprod2", "minsum")
-    if backend == "auto":
-        backend = default_bp_backend()
-    if backend in ("pallas", "pallas_interpret"):
-        from .bp_pallas import bp_decode_pallas
-        # flatten leading batch dims to the (B, Nv) shape the kernel takes
-        # (same contract as the XLA branch below)
-        batch_shape = ch.shape[:-1]
-        flat = ch.reshape(-1, ch.shape[-1])
-        res = bp_decode_pallas(flat, graph, max_iters=max_iters,
-                               method=method, corr_factor=corr_factor,
-                               interpret=backend == "pallas_interpret")
-        if ch.ndim == 1:
-            return BpResult(app=res.app[0], iterations=res.iterations[0])
-        return BpResult(app=res.app.reshape(batch_shape + (ch.shape[-1],)),
-                        iterations=res.iterations.reshape(batch_shape))
-    assert backend == "xla", f"unknown BP backend {backend!r}"
     correction = method != "minsum"
     cf = jnp.asarray(corr_factor, ch.dtype)
     batch_shape = ch.shape[:-1]

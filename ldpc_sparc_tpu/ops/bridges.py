@@ -19,6 +19,11 @@ which is exactly the S_k index-set family of `S_k_mapping`
     probabilities in a loop)
   * the Onsager derivative of the BP-composed denoiser collapses to two
     (L,logM)x(logM,M) matmuls (derivation in `integrated_onsager_term`).
+
+Every product here runs at `lax.Precision.HIGHEST`: the operands are
+probabilities and log-probabilities that feed BP and the integrated
+decoder's Onsager term, and TF32 (the GPU's default for float32 matmuls)
+would round them to about 1e-3 relative.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +65,7 @@ def section_probs_to_bit_probs(probs: jnp.ndarray, M: int) -> jnp.ndarray:
     L = probs.shape[-1] // M
     mask = jnp.asarray(bit0_mask_np(M))
     sec = probs.reshape(probs.shape[:-1] + (L, M))
-    p0 = sec @ mask
+    p0 = jnp.matmul(sec, mask, precision=_HI)
     return p0.reshape(probs.shape[:-1] + (L * logM,))
 
 
@@ -81,7 +88,8 @@ def bit_probs_to_section_probs(p0: jnp.ndarray, M: int,
     log_p = jnp.log(pb)
     log_q = jnp.log1p(-pb)
     # log probs[l, q] = sum_k mask[q,k] log_p[l,k] + (1-mask[q,k]) log_q[l,k]
-    logits = log_p @ mask.T + log_q @ (1.0 - mask.T)
+    logits = (jnp.matmul(log_p, mask.T, precision=_HI) +
+              jnp.matmul(log_q, 1.0 - mask.T, precision=_HI))
     out = jnp.exp(logits)
     return out.reshape(p0.shape[:-1] + (L * M,))
 
@@ -142,8 +150,9 @@ def integrated_onsager_derivative(alpha: jnp.ndarray, vk: jnp.ndarray,
     # rounds 1-eps to 1.0 in f32 making D exactly zero)
     v0 = jnp.clip(vk0.reshape(lead + (L, logM)), 1e-6, 1.0 - 1e-6)
     D = v0 * (1.0 - v0)
-    A = a @ B                                            # (..., L, logM)
-    term_b = ((1.0 - v - A) / D) @ B.T                   # (..., L, M)
+    A = jnp.matmul(a, B, precision=_HI)                  # (..., L, logM)
+    term_b = jnp.matmul((1.0 - v - A) / D, B.T,
+                        precision=_HI)                   # (..., L, M)
     term_c = jnp.sum(v * A / D, axis=-1, keepdims=True)  # (..., L, 1)
     main = (c_amp / tau_sqr) * a * (term_b + term_c)
     bp = beta_probs.reshape(lead + (L, M))

@@ -29,16 +29,18 @@ Two structural rules make this both sound and fast:
     (sorted + unique), while the large side is a free zero-pad / contiguous
     slice that XLA fuses into the FWHT matmuls. The reference-style random
     subset on BOTH sides needs a 2^19-element random scatter per product,
-    which measured ~50 ms on TPU and dominated the AMP iteration.
+    which dominated the AMP iteration where it was first measured.
 
 Column/row 0 (all-ones) is excluded everywhere. The Hadamard / DCT /
 Gaussian ensembles are statistically interchangeable for AMP at these block
 lengths; parity is asserted on BER curves and SE agreement (SURVEY.md
 section 7).
 
-TPU mapping: the FWHT is a Kronecker chain of <=1024-wide dense matmuls on
-the MXU (ops/wht.py); per-block products batch over the nonzero-block list,
-so the spatially-coupled band structure costs exactly its nonzero blocks.
+Device mapping: the FWHT is a Kronecker chain of small dense matmuls
+(ops/wht.py); per-block products batch over the nonzero-block list, so the
+spatially-coupled band structure costs exactly its nonzero blocks. Row- and
+column-block sums are fixed-order gathers (ops/segments.py), never
+scatter-adds, so products are bit-reproducible on the GPU.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import jax
 import jax.numpy as jnp
 
 from .wht import fwht
+from .segments import segment_table, table_sum
 from ..config import SparcParams, create_base_matrix
 
 
@@ -124,19 +127,14 @@ def srht_apply(vals: jnp.ndarray, idx: jnp.ndarray, signs: jnp.ndarray,
     the full-width true-SRHT window used when the window side is itself a
     power of two (halving w vs the offset-1 skip-row-0 layout).
 
-    scale: optional (E,) per-block multipliers, fused into the transform
-    (the Pallas backend applies them on the VMEM-resident block; the XLA
-    backend lets the compiler fuse the broadcast multiply).
+    scale: optional (E,) per-block multipliers (XLA fuses the broadcast
+    multiply into the transform's neighbours).
 
-    Backend: offset-0 full-window real transforms on TPU route through the
-    fused Pallas kernel (ops/wht_pallas.py) — one VMEM-resident two-matmul
-    FWHT with the sign diagonal and scale fused; everything else uses the
-    XLA Kronecker chain (ops/wht.py:fwht).
+    The scatter and gather promise XLA sorted, unique indices: idx rows
+    come from `generate_block_randomness` (np.sort of a draw without
+    replacement).
     """
-    from .wht_pallas import use_pallas_srht, fwht_signed
-
     E = vals.shape[0]
-    is_cx = jnp.iscomplexobj(vals)
     if idx_side_is_input:
         # scale commutes through the linear transform: apply it on the
         # small scattered side, O(small) instead of O(w)
@@ -145,8 +143,6 @@ def srht_apply(vals: jnp.ndarray, idx: jnp.ndarray, signs: jnp.ndarray,
         X = jnp.zeros((E, w), dtype=vals.dtype)
         X = X.at[jnp.arange(E)[:, None], idx].set(
             vals, indices_are_sorted=True, unique_indices=True)
-        if use_pallas_srht(w, offset, out_dim == w, is_cx):
-            return fwht_signed(X, signs, w, apply_pre=False)
         Y = fwht(X)
         if offset == 0 and out_dim == w:
             win = Y
@@ -154,19 +150,14 @@ def srht_apply(vals: jnp.ndarray, idx: jnp.ndarray, signs: jnp.ndarray,
             win = Y[:, offset:out_dim + offset]
         return win * signs.astype(vals.dtype)
     else:
-        if use_pallas_srht(w, offset, in_dim == w, is_cx):
-            out = fwht_signed(vals, signs, w, apply_pre=True
-                              ).at[jnp.arange(E)[:, None], idx].get(
-                indices_are_sorted=True, unique_indices=True)
+        signed = vals * signs.astype(vals.dtype)
+        if offset == 0 and in_dim == w:
+            X = signed
         else:
-            signed = vals * signs.astype(vals.dtype)
-            if offset == 0 and in_dim == w:
-                X = signed
-            else:
-                X = jnp.pad(signed, ((0, 0), (offset, w - offset - in_dim)))
-            Y = fwht(X)
-            out = Y.at[jnp.arange(E)[:, None], idx].get(
-                indices_are_sorted=True, unique_indices=True)
+            X = jnp.pad(signed, ((0, 0), (offset, w - offset - in_dim)))
+        Y = fwht(X)
+        out = Y.at[jnp.arange(E)[:, None], idx].get(
+            indices_are_sorted=True, unique_indices=True)
         if scale is not None:
             out = out * scale[:, None].astype(out.dtype)
         return out
@@ -287,9 +278,8 @@ class SparcDesign:
         if beta.ndim > 1:
             return jax.vmap(self.ab)(beta)
         xb = beta.reshape(self.Lc, self.Mc)
-        parts = self._fwd_blocks(xb[jnp.asarray(self.cols)])      # (E, Mr)
-        out = jax.ops.segment_sum(parts, jnp.asarray(self.rows),
-                                  num_segments=self.Lr)
+        parts = self._fwd_blocks(xb[np.asarray(self.cols)])       # (E, Mr)
+        out = table_sum(parts, segment_table(self.rows, self.Lr))
         return out.reshape(self.n)
 
     def az(self, z: jnp.ndarray) -> jnp.ndarray:
@@ -298,9 +288,8 @@ class SparcDesign:
         if z.ndim > 1:
             return jax.vmap(self.az)(z)
         zb = z.reshape(self.Lr, self.Mr)
-        parts = self._adj_blocks(zb[jnp.asarray(self.rows)])      # (E, Mc)
-        out = jax.ops.segment_sum(parts, jnp.asarray(self.cols),
-                                  num_segments=self.Lc)
+        parts = self._adj_blocks(zb[np.asarray(self.rows)])       # (E, Mc)
+        out = table_sum(parts, segment_table(self.cols, self.Lc))
         return out.reshape(self.LM)
 
     # -- test utilities -----------------------------------------------------
@@ -320,8 +309,8 @@ class DftDesign:
     replacement from [0, w) \\ {0, w/2}.
 
     Opt-in alternative to the default real-SRHT design for complex
-    SPARCs: the SRHT is the TPU-first choice (MXU matmul transforms; a
-    complex FFT maps to the slower XLA FFT path), but the two structured
+    SPARCs: the SRHT is the default (matmul transforms; SRHT against
+    cuFFT is not yet measured on the GPU), but the two structured
     ensembles sit ~0.25 linear snr units apart on the K=4 waterfall cliff
     at L=2048 (docs/artifacts/oracle_parity_mod.json) — users needing the
     reference's exact ensemble select this engine. Scalar base matrix

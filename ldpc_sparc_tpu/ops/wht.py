@@ -1,33 +1,34 @@
-"""Fast Walsh-Hadamard transform, MXU-factored.
+"""Fast Walsh-Hadamard transform as a Kronecker chain of small matmuls.
 
 The SPARC design matrix is a seeded row/column-subsampled Hadamard operator
 (the design documented at sparc_public/sparc.py:703-728; the reference's
 actual implementation substitutes scipy DCT/FFT, sparc_public/sparc.py:593-701
 — statistically equivalent ensembles for AMP).
 
-TPU-first design: instead of the O(w log w) butterfly (scalar-loop shaped,
-hostile to the MXU), we use the Kronecker factorization
+Instead of the O(w log w) butterfly, the transform uses the Kronecker
+factorization
 
     H_w = H_a  (x)  H_b  (x)  ...   =>   FWHT = a chain of dense matmuls
 
-so a w=2^19 transform is a short chain of (w/f, f) @ (f, f) matmuls — exactly
-the shape the 128x128 systolic array wants. XLA fuses the surrounding
-scatter/gather/scale elementwise ops into the matmul kernels.
+so a w=2^19 transform is a short chain of (w/f, f) @ (f, f) matmuls. XLA
+fuses the surrounding scatter/gather/scale elementwise ops into their
+neighbours.
 
-Tuning knobs (swept on hardware in benchmarks/perf_sweep.py, results in
-docs/ROOFLINE.md):
+Precision: every stage asks for `lax.Precision.HIGHEST`. On the GPU a
+float32 matmul at the default precision may run in TF32, which keeps about
+10 mantissa bits of the activations; HIGHEST keeps float32. The +-1
+factors are exact either way.
+
+Tuning knobs:
 
   * max_log_factor — the largest Kronecker factor is 2^max_log_factor
-    ("auto"/None picks 5 or 8 by transform width, the measured optimum).
-    Smaller factors mean fewer FLOPs (total = 2 * w * sum(factors)) but more
-    passes over the array (HBM traffic = passes * 2 * w * itemsize); larger
-    factors trade FLOPs for fewer memory passes. The default is chosen from
-    the hardware sweep.
-  * matmul_dtype — 'bfloat16' feeds the MXU bf16 inputs with float32
-    accumulation (preferred_element_type). Hadamard entries are +-1 (exact
-    in bf16); only the activations are rounded (~2^-9 relative per pass),
-    which is ~40 dB below the AWGN channel noise at the operating SNRs —
-    BER-neutral (gated by the bench correctness check) and 2x MXU rate.
+    ("auto"/None picks 5 or 8 by transform width). Smaller factors mean
+    fewer FLOPs (total = 2 * w * sum(factors)) but more passes over the
+    array (memory traffic = passes * 2 * w * itemsize); larger factors
+    trade FLOPs for fewer passes.
+  * matmul_dtype — 'bfloat16' feeds bf16 inputs with float32 accumulation
+    (preferred_element_type). Hadamard entries are +-1 (exact in bf16); only
+    the activations are rounded (~2^-9 relative per pass).
 
 All Hadamard factor matrices are Sylvester-ordered, symmetric, entries +-1.
 """
@@ -44,11 +45,8 @@ import jax.numpy as jnp
 # Defaults; override with set_fwht_options() or the environment variables
 # LDPC_SPARC_WHT_MAX_LOG_FACTOR / LDPC_SPARC_WHT_DTYPE /
 # LDPC_SPARC_WHT_STAGE_DTYPE (read at import).
-# "auto" (None internally): pick the factorization by transform width —
-# measured crossover on TPU v5e (docs/ROOFLINE.md section 8): up to
-# w = 2^20 the 2^5-factor chain wins (10,175 vs 9,126 flagship iters/s);
-# from w = 2^21 the 2^8-factor chain wins by ~40% (fewer HBM passes:
-# 1,602 vs 1,156 iters/s at w=2^21, 814 vs 584 at w=2^23).
+# "auto" (None internally): pick the factorization by transform width
+# (_auto_max_log_factor).
 _MAX_LOG_FACTOR = os.environ.get("LDPC_SPARC_WHT_MAX_LOG_FACTOR", "auto")
 _MAX_LOG_FACTOR = (None if _MAX_LOG_FACTOR == "auto"
                    else int(_MAX_LOG_FACTOR))
@@ -64,10 +62,10 @@ def set_fwht_options(max_log_factor: int | str | None = None,
     Call before tracing; already-jitted callers keep the factorization they
     were traced with (the knobs are trace-time constants).
 
-    stage_dtype: dtype the INTER-STAGE intermediates are stored in (HBM
-    traffic), independent of matmul_dtype (the MXU input rounding).
-    'bfloat16' halves the dominant HBM traffic of the Kronecker chain at
-    ~2^-9 relative rounding per stage — gated by the bench BER check.
+    stage_dtype: dtype the INTER-STAGE intermediates are stored in (memory
+    traffic), independent of matmul_dtype (the matmul input rounding).
+    'bfloat16' halves the memory traffic of the Kronecker chain at ~2^-9
+    relative rounding per stage.
     The final stage always accumulates/returns in the caller's dtype.
     """
     global _MAX_LOG_FACTOR, _MATMUL_DTYPE, _STAGE_DTYPE
@@ -106,11 +104,11 @@ def hadamard_factor(n: int, dtype=jnp.float32) -> jnp.ndarray:
 
 
 def _auto_max_log_factor(log_w: int) -> int:
-    """Measured w-dependent default (TPU v5e sweep, ROOFLINE section 8):
-    small transforms prefer more 2^5 passes (better fusion with the
-    scatter/gather around them), very large transforms prefer fewer,
-    wider 2^8 passes (each pass re-streams the full w-state through
-    HBM). Crossover measured between w=2^20 and w=2^21."""
+    """Width-dependent default: small transforms prefer more 2^5 passes
+    (better fusion with the scatter/gather around them), very large
+    transforms prefer fewer, wider 2^8 passes (each pass re-streams the
+    full w-state through device memory). The crossover between w=2^20 and
+    w=2^21 is an inherited value, not yet measured on the GPU."""
     return 5 if log_w <= 20 else 8
 
 
@@ -132,7 +130,7 @@ def fwht(x: jnp.ndarray) -> jnp.ndarray:
 
     x: (..., w) with w a power of two. Complex inputs are handled by
     transforming real and imaginary parts (H is real), keeping the matmuls
-    on the real MXU path.
+    real.
     """
     w = x.shape[-1]
     assert w > 0 and (w & (w - 1)) == 0, "FWHT length must be a power of two"
@@ -143,7 +141,7 @@ def fwht(x: jnp.ndarray) -> jnp.ndarray:
     factors = _factorize(log_w, _MAX_LOG_FACTOR)
     out_dtype = x.dtype
     mm_dtype = jnp.bfloat16 if _MATMUL_DTYPE == "bfloat16" else out_dtype
-    # inter-stage storage dtype: bf16 halves the chain's HBM traffic
+    # inter-stage storage dtype: bf16 halves the chain's memory traffic
     # (each stage materializes the full w-state); the LAST stage always
     # lands in out_dtype so callers see full-precision accumulation
     st_dtype = jnp.bfloat16 if _STAGE_DTYPE == "bfloat16" else out_dtype
@@ -155,9 +153,11 @@ def fwht(x: jnp.ndarray) -> jnp.ndarray:
         axis = nb + i
         last = i == len(factors) - 1
         # contract factor axis with H (symmetric), put result back in place;
-        # accumulation dtype = stage storage dtype (except the final stage)
+        # accumulation dtype = stage storage dtype (except the final stage);
+        # HIGHEST: no TF32 rounding of float32 activations (module docstring)
         y = jnp.moveaxis(
             jnp.tensordot(y.astype(mm_dtype), H, axes=[[axis], [0]],
+                          precision=jax.lax.Precision.HIGHEST,
                           preferred_element_type=out_dtype if last
                           else st_dtype),
             -1, axis)

@@ -9,8 +9,9 @@ The framework's two parallel axes (SURVEY.md section 2, parallelism table):
         matrix (sparc_public/sparc.py:831-875)
 
 Multi-host: call `jax.distributed.initialize()` before building the mesh;
-`jax.devices()` then spans all hosts and collectives ride ICI within a slice
-and DCN across slices.
+`jax.devices()` then spans all hosts. The mesh follows the algorithm alone:
+`jax.make_mesh` over the visible devices, with no topology shaping (GPUs of
+one host reach each other all to all over NVLink).
 """
 
 from __future__ import annotations

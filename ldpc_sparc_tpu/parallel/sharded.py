@@ -8,7 +8,7 @@ that block structure *is* the decomposition to shard across chips
   * beta / s / tau / psi are sharded along the column-block (section) axis
     'sec'; the residual z and the row statistics phi are replicated
   * forward A.beta: each device transforms only its own column blocks and
-    the row-block partial sums are reduced with `psum` over 'sec' (ICI)
+    the row-block partial sums are reduced with `psum` over 'sec'
   * adjoint A^T.z: needs only the replicated z — no communication
   * gamma = W @ psi / Lc is a psum of per-device partial matvecs
   * the early-stop test psums a local convergence predicate
@@ -34,6 +34,7 @@ from jax.sharding import PartitionSpec as P
 
 from ..config import SparcParams, DecodeParams, create_base_matrix
 from ..ops.transforms import SparcDesign
+from ..ops.segments import segment_table, table_sum
 from ..ops.denoiser import mmse_denoise, map_estimate
 from ..models.sparc import awgn_channel
 from ..utils import bits as bitops
@@ -93,6 +94,18 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
     L, M, K = params.L, params.M, params.K
     assert Lc % n_sec == 0, f"sec axis {n_sec} must divide Lc={Lc}"
     Lc_loc = Lc // n_sec
+    E_loc = Lc_loc * sd.blocks_per_col
+    # blocks are column-major with equal blocks per column, so local block
+    # j belongs to local column j // blocks_per_col on every shard; the
+    # row membership differs per shard and rides in as a sharded table
+    col_table = np.arange(E_loc, dtype=np.int32).reshape(Lc_loc, -1)
+    rows_np = np.asarray(sd.rows)
+    tables = [segment_table(rows_np[k * E_loc:(k + 1) * E_loc], Lr)
+              for k in range(n_sec)]
+    depth = max(t.shape[1] for t in tables)
+    row_tables = jnp.asarray(np.concatenate(
+        [np.pad(t, ((0, 0), (0, depth - t.shape[1])), constant_values=-1)
+         for t in tables]))                               # (n_sec * Lr, depth)
     sec_per_col = L // Lc
     bits_per_col_block = (L // Lc) * params.sec_size
     t_max, rtol = decode.t_max, decode.rtol
@@ -100,9 +113,11 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
     Wj = jnp.asarray(sd.W, jnp.float32)           # (Lr, Lc) replicated
     cdtype = jnp.complex64 if params.is_complex else jnp.float32
 
-    def trial(key, row_idx, signs, scale, rows_l, cols_l, W_loc, dev_col0):
+    def trial(key, row_idx, signs, scale, rows_l, cols_l, row_table,
+              W_loc, dev_col0):
         """One trial with local column blocks. cols_l are local (0-based).
 
+        row_table: (Lr, depth) local block ids per row block, -1 padded.
         W_loc: (Lr, Lc_loc) local slice of the base matrix.
         """
         kb = rngmod.derive(key, rngmod.BITS)
@@ -114,14 +129,13 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
         def ab(beta_loc):
             xb = beta_loc.reshape(Lc_loc, Mc)
             parts = d_loc._fwd_blocks(xb[cols_l])                 # (E_loc, Mr)
-            out = jax.ops.segment_sum(parts, rows_l, num_segments=Lr)
+            out = table_sum(parts, row_table)
             return jax.lax.psum(out.reshape(n), "sec")
 
         def az(z):
             zb = z.reshape(Lr, Mr)
             parts = d_loc._adj_blocks(zb[rows_l])                 # (E_loc, Mc)
-            return jax.ops.segment_sum(parts, cols_l,
-                                       num_segments=Lc_loc).reshape(Lc_loc * Mc)
+            return table_sum(parts, col_table).reshape(Lc_loc * Mc)
 
         # --- encode: local message bits -> local beta -> replicated x ---
         # derive per-column-block bit keys so randomness is independent of
@@ -143,17 +157,22 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
             return jnp.broadcast_to(v[:, None],
                                     (Lc_loc, Mc)).reshape(Lc_loc * Mc)
 
+        # W matvecs at HIGHEST: no TF32 rounding of the float32 statistics
+        hi = jax.lax.Precision.HIGHEST
+
         def body(carry, t):
             beta, z, s_prev, phi_prev, psi_loc, stopped, t_final = carry
             first = t == 0
-            gamma = jax.lax.psum(W_loc @ psi_loc, "sec") / Lc     # (Lr,)
+            gamma = jax.lax.psum(jnp.matmul(W_loc, psi_loc, precision=hi),
+                                 "sec") / Lc                      # (Lr,)
             b_coef = jnp.where(first, 0.0, gamma / phi_prev)
             z_new = jnp.where(first, y, y - ab(beta) + rep_r(b_coef) * z)
             if decode.phi_est_method == 1:
                 phi = awgn_var + gamma
             else:
                 phi = jnp.mean(jnp.abs(z_new).reshape(Lr, Mr) ** 2, axis=1)
-            tau_loc = (L / Mr) / (W_loc.T @ (1.0 / phi))          # (Lc_loc,)
+            tau_loc = (L / Mr) / jnp.matmul(W_loc.T, 1.0 / phi,
+                                            precision=hi)         # (Lc_loc,)
             s = beta + rep_c(tau_loc) * az(z_new / rep_r(phi).astype(z_new.dtype))
             beta_new = mmse_denoise(s, rep_c(1.0 / tau_loc), M, K)
             psi_new = 1.0 - jnp.sum(
@@ -188,14 +207,14 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
     # A frame error is "any bit error on any shard" -> psum the per-trial
     # bit counts over 'sec' first. t_final is replicated across 'sec', so
     # its psum is divided back by n_sec.
-    def shard_fn(keys, row_idx, signs, scale, rows_g, cols_g):
+    def shard_fn(keys, row_idx, signs, scale, rows_g, cols_g, row_table):
         sec_idx = jax.lax.axis_index("sec")
         dev_col0 = sec_idx * Lc_loc
         cols_l = cols_g - dev_col0
         W_loc = jax.lax.dynamic_slice_in_dim(Wj, dev_col0, Lc_loc, axis=1)
         be, se, it = jax.vmap(
             lambda k: trial(k, row_idx, signs, scale, rows_g, cols_l,
-                            W_loc, dev_col0))(keys)
+                            row_table, W_loc, dev_col0))(keys)
         be_g = jax.lax.psum(jnp.sum(be), "sec")        # disjoint sections
         se_g = jax.lax.psum(jnp.sum(se), "sec")
         fe_g = jax.lax.psum(jnp.sum((jax.lax.psum(be, "sec") > 0)
@@ -207,12 +226,12 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
     step = jax.jit(jax.shard_map(
         shard_fn, mesh=mesh, check_vma=False,
         in_specs=(P("dp"), P("sec", None), P("sec", None), P("sec"),
-                  P("sec"), P("sec")),
+                  P("sec"), P("sec"), P("sec", None)),
         out_specs=P("dp")))
 
     def run(keys):
         out = np.asarray(step(keys, sd.idx, sd.signs, sd.scale,
-                              sd.rows, sd.cols))[0]
+                              sd.rows, sd.cols, row_tables))[0]
         return {"bit_errs": int(out[0]), "sec_errs": int(out[1]),
                 "frame_errs": int(out[2]), "iter_sum": int(out[3])}
 
@@ -221,5 +240,5 @@ def make_sharded_sim_step(params: SparcParams, decode: DecodeParams,
     # compiled HLO's collectives without re-deriving the design
     run.step = step
     run.step_args = lambda keys: (keys, sd.idx, sd.signs, sd.scale,
-                                  sd.rows, sd.cols)
+                                  sd.rows, sd.cols, row_tables)
     return run, n_dp

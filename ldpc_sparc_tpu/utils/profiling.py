@@ -1,6 +1,6 @@
 """Profiling / tracing utilities.
 
-TPU-native counterpart of the reference's profiling harness (SURVEY.md
+Counterpart of the reference's profiling harness (SURVEY.md
 section 5): the cProfile driver (ldpc_jossy/py/profile_ldpc.py), kernprof
 decorators (sparc_sophie/testing/timing_*.py) and the notebooks'
 per-trial `time.perf_counter` prints. Here:
@@ -63,7 +63,6 @@ def fwht_width(L: int, M: int, n: int,
 
 def amp_iteration_flops(L: int, M: int, n: int,
                         max_log_factor: int | None = None,
-                        backend: str = "xla",
                         base_shape: Tuple[int, int] = (1, 1),
                         n_blocks: int | None = None) -> int:
     """FLOPs of one AMP iteration through the factored Hadamard design:
@@ -74,22 +73,14 @@ def amp_iteration_flops(L: int, M: int, n: int,
 
     base_shape: the base-matrix (Lr, Lc); n_blocks: number of NONZERO
     blocks (for band-diagonal SC matrices pass the design's actual count,
-    len(design.rows); defaults to Lr*Lc, exact for plain/PA/dense W).
-
-    backend="pallas_ms": the single-pass multi-stage VMEM kernel
-    (ops/wht_pallas.py) — sublane factors of S = w/128 plus the lane-axis
-    H_128 factor."""
+    len(design.rows); defaults to Lr*Lc, exact for plain/PA/dense W)."""
     from ..ops.wht import _factorize, get_fwht_options
     w = fwht_width(L, M, n, base_shape)
     if n_blocks is None:
         n_blocks = base_shape[0] * base_shape[1]
-    if backend == "pallas_ms":
-        from ..ops.wht_pallas import _sublane_factors
-        factors = list(_sublane_factors(w // 128)) + [128]
-    else:
-        if max_log_factor is None:
-            max_log_factor = get_fwht_options()[0]
-        factors = _factorize(w.bit_length() - 1, max_log_factor)
+    if max_log_factor is None:
+        max_log_factor = get_fwht_options()[0]
+    factors = _factorize(w.bit_length() - 1, max_log_factor)
     fwht = 2 * w * sum(factors)  # MACs * 2
     return 2 * n_blocks * fwht + 10 * L * M
 
@@ -97,30 +88,22 @@ def amp_iteration_flops(L: int, M: int, n: int,
 def amp_iteration_hbm_bytes(L: int, M: int, n: int,
                             max_log_factor: int | None = None,
                             itemsize: int = 4,
-                            backend: str = "xla",
                             base_shape: Tuple[int, int] = (1, 1),
                             n_blocks: int | None = None) -> int:
-    """Minimum HBM traffic of one AMP iteration, assuming each Kronecker
-    matmul stage reads + writes the full w-state once per nonzero block
-    (XLA fuses the scatter/gather/scale elementwise chain into the
+    """Minimum device-memory traffic of one AMP iteration, assuming each
+    Kronecker matmul stage reads + writes the full w-state once per nonzero
+    block (XLA fuses the scatter/gather/scale elementwise chain into the
     neighboring matmuls) plus one read/write of the L*M state for the
-    denoiser. This is the denominator of the memory-roofline estimate in
-    docs/ROOFLINE.md. base_shape/n_blocks as in amp_iteration_flops.
-
-    backend="pallas_ms": all stages run on the VMEM-resident block, so
-    each transform costs one read of the state + the bf16 sign plane and
-    one write, regardless of stage count."""
+    denoiser: the denominator of a memory-roofline estimate.
+    base_shape/n_blocks as in amp_iteration_flops."""
     from ..ops.wht import _factorize, get_fwht_options
     w = fwht_width(L, M, n, base_shape)
     if n_blocks is None:
         n_blocks = base_shape[0] * base_shape[1]
-    if backend == "pallas_ms":
-        per_transform = w * (itemsize + itemsize + 2)  # in + out + bf16 signs
-    else:
-        if max_log_factor is None:
-            max_log_factor = get_fwht_options()[0]
-        stages = len(_factorize(w.bit_length() - 1, max_log_factor))
-        per_transform = 2 * stages * w * itemsize     # read + write per stage
+    if max_log_factor is None:
+        max_log_factor = get_fwht_options()[0]
+    stages = len(_factorize(w.bit_length() - 1, max_log_factor))
+    per_transform = 2 * stages * w * itemsize     # read + write per stage
     return 2 * n_blocks * per_transform + 2 * L * M * itemsize
 
 

@@ -8,6 +8,7 @@ the semi-protected real-prefix path.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -94,3 +95,33 @@ def test_sparc_sweep_cli_dft_engine(tmp_path):
     store = [json.loads(l) for l in
              (tmp_path / "sparc_sweep.jsonl").read_text().splitlines()]
     assert len(store) == 2, "engines must get distinct resume keys"
+
+
+def test_ldpc_campaign_cli_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """Without matplotlib the campaign still writes results.txt and
+    results.csv and says the plot was skipped."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    from ldpc_sparc_tpu import cli
+    cli.main(["ldpc-campaign", "--standard", "802.16", "--rate", "1/2",
+              "--z", "3", "--points", "2", "--min-errors", "2",
+              "--max-blocks", "16", "--batch", "8", "--max-iters", "10",
+              "--out", str(tmp_path), "--platform", "cpu"])
+    assert len((tmp_path / "results.txt").read_text().splitlines()) == 2
+    assert (tmp_path / "results.csv").stat().st_size > 0
+    assert not (tmp_path / "waterfall.png").exists()
+    skipped = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if "plot_skipped" in line]
+    assert skipped[0]["plot_skipped"].endswith("waterfall.png")
+
+
+def test_concat_sweep_cli_without_matplotlib(tmp_path, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    from ldpc_sparc_tpu import cli
+    series = cli.main(["concat-sweep", "--z", "12", "--mults", "1",
+                       "--logM", "2", "--t-max", "3", "--runs", "2",
+                       "--num-snrs", "1", "--decoders", "sequential",
+                       "--out", str(tmp_path), "--platform", "cpu"])
+    assert len(series["sequential"]) == 1
+    assert (tmp_path / "concat_sweep.jsonl").exists()
+    assert not (tmp_path / "concat_sweep.png").exists()
+    assert "plot_skipped" in capsys.readouterr().out

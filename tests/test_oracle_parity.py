@@ -2,8 +2,8 @@
 
 SURVEY.md section 4 test-plan item (d), at full scale for ALL FOUR SPARC
 code families: the committed artifacts docs/artifacts/oracle_parity*.json
-record matched operating points measured by (a) the JAX/TPU framework
-(SRHT Hadamard design, f32) and (b) an independent NumPy float64 AMP over
+record matched operating points measured by (a) the JAX framework on the
+GPU (SRHT Hadamard design, f32) and (b) an independent NumPy float64 AMP over
 the reference's own fast-transform engine family — seeded subsampled
 DCT/FFT designs and the scalar / vector / 2-D base-matrix AMP branches,
 re-derived from sparc_public/sparc.py:593-701, 800-877, 883-999 (not
@@ -76,6 +76,13 @@ def test_numpy_mod_oracle_is_a_working_decoder():
 # artifact gates, one per family
 # --------------------------------------------------------------------------
 
+def _assert_jax_side_on_gpu(doc):
+    """The JAX side ran on a GPU named by nvidia-smi (the NumPy side runs
+    on the host whatever the device)."""
+    dev = doc["device"]
+    assert dev["platform"] == "gpu" and dev["nvidia_smi"], dev
+
+
 FAMILIES = {
     "oracle_parity.json": dict(
         check=lambda c: (c["L"], c["M"], c["R"]) == (1024, 512, 1.0),
@@ -101,6 +108,7 @@ def test_oracle_parity_artifact(name):
         pytest.skip(f"{name} not present")
     fam = FAMILIES[name]
     doc = json.loads(path.read_text())
+    _assert_jax_side_on_gpu(doc)
     assert fam["check"](doc["config"]), doc["config"]
     assert not doc.get("quick", False)
     points = doc["points"]
@@ -144,13 +152,14 @@ def _ser_crossing(points, side, level=0.05):
 def test_mod_oracle_parity_artifact():
     """The modulated family carries a DELIBERATE design divergence: the
     reference's complex engine is a subsampled DFT, ours the real SRHT
-    applied to complex message vectors (MXU-friendly). The two structured
+    applied to complex message vectors. The two structured
     ensembles genuinely differ on the waterfall cliff at L=2048 (a dense
     iid-complex-Gaussian referee is worse than both), so this gate pins
     (a) 4-sigma SER/BER agreement in the error-FLOOR region (snr >= 8),
     (b) both engines' SER=5% waterfall crossings within 0.5 linear snr
     units (~0.3 dB), and (c) full-coverage conditions."""
     doc = json.loads(MOD_PARITY.read_text())
+    _assert_jax_side_on_gpu(doc)
     cfg = doc["config"]
     assert cfg.get("modulated") and \
         (cfg["L"], cfg["M"], cfg["K"], cfg["R"]) == (2048, 8, 4, 2.6)
@@ -190,6 +199,7 @@ def test_mod_dft_same_ensemble_parity_is_tight():
     offset. Together with test_mod_oracle_parity_artifact this pins that
     the cliff offset is an ENSEMBLE property, not a decoder defect."""
     doc = json.loads(MOD_DFT_PARITY.read_text())
+    _assert_jax_side_on_gpu(doc)
     cfg = doc["config"]
     assert cfg.get("jax_engine") == "dft"
     assert (cfg["L"], cfg["M"], cfg["K"], cfg["R"]) == (2048, 8, 4, 2.6)

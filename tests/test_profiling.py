@@ -1,6 +1,6 @@
 """Tests of the profiling harness (utils/profiling.py).
 
-The FLOP/byte models are the denominators of docs/ROOFLINE.md; they must
+The FLOP/byte models are the denominators of roofline estimates; they must
 track the design engine's actual layout choices (ops/transforms.py
 SparcDesign.build) and the FWHT factorization (ops/wht.py _factorize).
 """

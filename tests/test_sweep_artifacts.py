@@ -28,6 +28,13 @@ def _rows(path):
             if line.strip()]
 
 
+def _assert_measured_on_gpu(doc):
+    """Measured artifacts name the GPU they ran on (nvidia-smi's name and
+    power limit beside JAX's device record)."""
+    dev = doc["device"]
+    assert dev["platform"] == "gpu" and dev["nvidia_smi"], dev
+
+
 @pytest.mark.skipif(not SWEEP.exists(), reason="sweep artifact not present")
 def test_concat_sweep_covers_all_decoder_families():
     rows = _rows(SWEEP)
@@ -128,6 +135,7 @@ def test_modulated_sweep_artifact():
     R=2.6) at measurement depth: full waterfall with the reference's
     ler/ver split, collapsing at the SE-predicted threshold."""
     doc = json.loads(MODULATED.read_text())
+    _assert_measured_on_gpu(doc)
     cfg = doc["config"]
     assert (cfg["L"], cfg["M"], cfg["R"], cfg.get("K")) == (2048, 8, 2.6, 4)
     assert cfg.get("modulated") and cfg.get("is_complex")
@@ -167,6 +175,7 @@ def test_pa_sweep_artifact():
     fails hard — and (b) a >100x measured collapse reaching sub-1e-3 SER
     by the demo's own operating point."""
     doc = json.loads(PA.read_text())
+    _assert_measured_on_gpu(doc)
     cfg = doc["config"]
     assert (cfg["L"], cfg["M"], cfg["R"]) == (1024, 32, 1.4)
     assert cfg.get("power_allocated") and cfg.get("B") == 32
@@ -198,6 +207,7 @@ def test_minsum_waterfall_penalty():
     that the ABI repair produced a WORKING decoder, not just an
     oracle-exact one."""
     doc = json.loads(MINSUM.read_text())
+    _assert_measured_on_gpu(doc)
     assert not doc.get("quick", False)
     assert doc["protocol"]["dectype"] == "minsum"
     configs = doc["configs"]
@@ -219,6 +229,7 @@ def test_flagship_deep_points_pin_error_floor():
     with CI at the 1e-4 level and demonstrate FER < 1 (round-4 verdict:
     the 32-trial rows could do neither)."""
     doc = json.loads(FLAGSHIP.read_text())
+    _assert_measured_on_gpu(doc)
     deep = doc.get("deep_rows", [])
     if not deep:
         pytest.skip("flagship artifact predates deep rows")
@@ -238,6 +249,7 @@ def test_flagship_waterfall_matches_se_threshold():
     SER drops by >10x across the SE threshold snr, and the below-threshold
     side decodes to SER < 2%."""
     doc = json.loads(FLAGSHIP.read_text())
+    _assert_measured_on_gpu(doc)
     thr = doc["se_threshold_snr"]
     assert thr is not None
     rows = sorted(doc["rows"], key=lambda r: r["snr"])
@@ -257,10 +269,11 @@ SCALE = ART_DIR / "scale_probe.json"
 @pytest.mark.skipif(not SCALE.exists(), reason="scale probe not present")
 def test_scale_probe_artifact():
     """Beyond-reference scale: configs up to 8x the flagship design size
-    (LM = 2^22) decode near threshold on one chip. The largest row's
+    (LM = 2^22) decode near threshold on one GPU. The largest row's
     design would be ~1.3 TB dense — out of reach for the reference's
     stack at any speed."""
     doc = json.loads(SCALE.read_text())
+    _assert_measured_on_gpu(doc)
     rows = sorted(doc["rows"], key=lambda r: r["LM"])
     assert len(rows) >= 3
     assert rows[-1]["LM"] >= 1 << 22
@@ -270,31 +283,6 @@ def test_scale_probe_artifact():
         # region, far from the ~0.3 failure plateau)
         assert r["ber"] < 5e-3, r
         assert r["wall_s"] < 120, r
-
-
-PACKED_EQ = ART_DIR / "packed_equivalence_tpu.json"
-
-
-@pytest.mark.skipif(not PACKED_EQ.exists(),
-                    reason="packed equivalence artifact not present")
-def test_packed_equivalence_on_hardware():
-    """The CPU bitwise gate for decode_batch cannot exercise the
-    Pallas/XLA backend split (small lane counts route both paths to XLA).
-    This artifact records the on-TPU check at production size: packed
-    decoding (>=64 lanes -> Pallas BP) vs per-trial vmap decoding (XLA
-    BP) at the z=150 config, with REAL errors in play — per-trial
-    user-bit counts must be identical for every decoder measured."""
-    doc = json.loads(PACKED_EQ.read_text())
-    assert doc["platform"] == "tpu"
-    assert doc["config"]["packed_bp_lanes"] >= 64
-    decoders = set()
-    for r in doc["rows"]:
-        assert r["identical"], r["decoder"]
-        assert r["max_per_trial_delta_bits"] == 0
-        decoders.add(r["decoder"])
-    assert {"sequential", "naive", "integrated"} <= decoders
-    # non-vacuous: at least two decoders exercised real errors
-    assert sum(1 for r in doc["rows"] if sum(r["packed"]) > 0) >= 2
 
 
 SC_SWEEP = ART_DIR / "sc_sweep.json"
@@ -309,6 +297,7 @@ def test_sc_sweep_artifact():
     the low-error regime starts ~10.5 (the same gap the SC oracle-parity
     artifact measures on both engines)."""
     doc = json.loads(SC_SWEEP.read_text())
+    _assert_measured_on_gpu(doc)
     cfg = doc["config"]
     assert cfg.get("spatially_coupled")
     assert (cfg["L"], cfg["M"], cfg["omega"], cfg["Lambda"]) == \

@@ -136,3 +136,51 @@ def test_dft_design_with_leaves_roundtrip():
     x = jnp.ones(a.LM, jnp.complex64)
     np.testing.assert_allclose(np.asarray(jnp.real(c.ab(x))),
                                np.asarray(jnp.real(b.ab(x))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("idx_side_is_input", [False, True])
+def test_srht_apply_matches_dense_operator(offset, idx_side_is_input):
+    """srht_apply in both directions against the dense block built row by
+    row from H_w[r, c] = (-1)^popcount(r & c): the gather-out product is
+    scale * H[idx, offset:offset+large] * signs, the scatter-in product its
+    transpose."""
+    from ldpc_sparc_tpu.ops.transforms import (generate_block_randomness,
+                                               srht_apply)
+    from ldpc_sparc_tpu.ops.wht import fwht_matrix_row
+    small = 24
+    large, w = (256, 256) if offset == 0 else (200, 256)
+    _, _, idx, signs = generate_block_randomness(
+        np.array([[1.0, 0.0], [2.0, 1.0]]), small, large, w, seed=4,
+        offset=offset)
+    scale = np.array([0.5, 1.5, 2.0], np.float32)
+    E = idx.shape[0]
+    dense = np.stack([
+        scale[e] * np.stack([fwht_matrix_row(w, int(r))[offset:offset + large]
+                             for r in idx[e]]) * signs[e] for e in range(E)])
+    rng = np.random.default_rng(offset)
+    in_dim, out_dim = (small, large) if idx_side_is_input else (large, small)
+    vals = rng.standard_normal((E, in_dim)).astype(np.float32)
+    got = srht_apply(jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(signs),
+                     w, in_dim, out_dim, idx_side_is_input, offset,
+                     jnp.asarray(scale))
+    op = np.swapaxes(dense, 1, 2) if idx_side_is_input else dense
+    np.testing.assert_allclose(np.asarray(got),
+                               np.einsum("eoi,ei->eo", op, vals),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_block_indices_sorted_and_unique(offset):
+    """srht_apply tells XLA its scatter/gather indices are sorted and
+    unique; generate_block_randomness must keep that promise."""
+    from ldpc_sparc_tpu.ops.transforms import generate_block_randomness
+    W = np.ones((3, 4))
+    for small, large, w in ((40, 256, 256), (255, 256, 256), (96, 300, 512)):
+        if offset == 0 and large != w:
+            continue
+        _, _, idx, _ = generate_block_randomness(W, small, large, w, seed=1,
+                                                 offset=offset)
+        assert idx.shape == (12, small)
+        assert np.all(np.diff(idx, axis=1) > 0)
+        assert idx.min() >= (0 if offset == 0 else 1) and idx.max() < w

@@ -7,14 +7,6 @@ BP decoder must reproduce the measured BER within Monte-Carlo confidence —
 the bit/word-error validation the upstream README says can only be done
 against published performance data (ldpc_jossy/README.md:133-137).
 
-Backend contract: this CPU-side statistical gate runs the XLA BP kernel
-explicitly (BP_BACKEND below). The Pallas kernel is covered by (a) the
-hardware decision/iteration-exactness gate vs XLA at 3 code scales
-(docs/artifacts/bp_pallas_tpu_check.json, tests/test_bp_pallas.py) and
-(b) the committed TPU campaign artifact, generated through the Pallas
-default and gated against the same 2018 data
-(tests/test_campaign_artifact.py).
-
 Skipped when the reference data directory is not present.
 """
 
@@ -31,7 +23,6 @@ from ldpc_sparc_tpu.models.ldpc import get_code
 from ldpc_sparc_tpu.ops.bp import bp_decode
 
 REF_CSV = Path("/root/reference/ldpc_jossy/data/results.csv")
-BP_BACKEND = "xla"  # explicit: see module docstring for Pallas coverage
 
 
 def load_reference_points(standard, rate_float, ptype_int, z):
@@ -66,7 +57,7 @@ def measure_ber(code, snr_db, n_blocks, seed):
 
     xs, llrs = jax.jit(jax.vmap(tx))(keys)
     res = bp_decode(jnp.asarray(llrs, jnp.float32), code.graph,
-                    max_iters=200, method="sumprod", backend=BP_BACKEND)
+                    max_iters=200, method="sumprod")
     errs = int(jnp.sum((res.app < 0).astype(jnp.int32) != xs))
     return errs, n_blocks * code.K
 
