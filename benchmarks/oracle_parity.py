@@ -590,11 +590,6 @@ def main():
     ap.add_argument("--t-max", type=int, default=None)
     ap.add_argument("--quick", action="store_true",
                     help="2 points, few trials (smoke only; do not commit)")
-    ap.add_argument("--numpy-from", default=None,
-                    help="take the NumPy rows from this earlier artifact of "
-                         "the same family (same config, points and seeds) "
-                         "instead of recomputing them: the oracle is seeded "
-                         "and runs on the host, whatever the device")
     args = ap.parse_args()
 
     import jax
@@ -668,18 +663,6 @@ def main():
         snrs = snrs[:1] + snrs[-1:]
         np_trials, jax_trials = 8, 64
 
-    old_points = None
-    if args.numpy_from:
-        with open(args.numpy_from) as f:
-            old = json.load(f)
-        same = (old["config"]["L"], old["config"]["M"], old["config"]["R"],
-                old["config"]["t_max"]) == (params.L, params.M, params.R,
-                                            t_max)
-        if old.get("quick") or not same:
-            raise SystemExit(f"{args.numpy_from}: config {old['config']} "
-                             f"is not this family's")
-        old_points = {p["snr"]: p for p in old["points"]}
-
     points = []
     t0 = time.perf_counter()
     for i, snr in enumerate(snrs):
@@ -689,9 +672,7 @@ def main():
                                    seed0=400 + i, engine=engine)
         tj = time.perf_counter() - tj0
         tn0 = time.perf_counter()
-        if old_points is not None:
-            nrow = old_points[snr]["numpy"]
-        elif args.family == "plain":
+        if args.family == "plain":
             ns, nb, ni = run_numpy_point(
                 params.L, params.M, params.P, params.R, var, t_max,
                 np_trials, seed=8000 + i)
@@ -709,8 +690,7 @@ def main():
                 t_max, np_trials, seed=8000 + i)
         tn = time.perf_counter() - tn0
         jrow = summarize(js, jb, ji, params.L, bits_per_sec)
-        if old_points is None:
-            nrow = summarize(ns, nb, ni, params.L, bits_per_sec)
+        nrow = summarize(ns, nb, ni, params.L, bits_per_sec)
         # frame-level Welch sigma of the SER difference
         sig = float(np.sqrt(jrow["frame_ser_std"] ** 2 / jrow["trials"] +
                             nrow["frame_ser_std"] ** 2 / nrow["trials"]))
@@ -718,9 +698,8 @@ def main():
                        "jax": jrow, "numpy": nrow,
                        "ser_diff": abs(jrow["ser"] - nrow["ser"]),
                        "ser_sigma": sig,
-                       "jax_wall_s": round(tj, 1)})
-        if old_points is None:
-            points[-1]["numpy_wall_s"] = round(tn, 1)
+                       "jax_wall_s": round(tj, 1),
+                       "numpy_wall_s": round(tn, 1)})
         print(json.dumps({"snr": snr, "jax_ser": jrow["ser"],
                           "np_ser": nrow["ser"], "sigma": sig}), flush=True)
 
@@ -739,9 +718,6 @@ def main():
            "config": cfg,
            "oracle": "independent NumPy float64 subsampled-DCT AMP "
                      "(benchmarks/oracle_parity.py)",
-           "numpy_rows": ("copied from an earlier run of this script "
-                          "(same config, points and seeds)"
-                          if old_points is not None else "computed"),
            "wall_s": round(time.perf_counter() - t0, 1),
            "quick": bool(args.quick),
            "points": points}

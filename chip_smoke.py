@@ -41,10 +41,11 @@ MODULATED = dict(P=15.0, R=2.6, L=2048, M=8, modulated=True, K=4,
                  is_complex=True)
 FLAGSHIP_TRIALS = 256
 CONCAT_Z = 150
-# (standard, rate, z, snr_db): a little above each code's waterfall, where
-# the oracle decodes every one of the BP_WORDS codewords
-BP_CASES = (("802.11n", "1/2", 27, 2.5), ("802.11n", "5/6", 81, 6.0))
+# (standard, rate, z, snr_db): near each code's waterfall, where a few of
+# the BP_WORDS codewords run to the iteration limit
+BP_CASES = (("802.11n", "1/2", 27, 2.5), ("802.11n", "5/6", 81, 5.5))
 BP_WORDS = 128
+BP_MAX_ITERS = 100
 CAMPAIGN_CODE = ("802.16", "1/2", "27", "A")
 CAMPAIGN_BATCH = 512
 
@@ -232,54 +233,122 @@ def phase_ldpc_encode():
     return out
 
 
+def bp_case(code, z: int, snr_db: float, n: int = BP_WORDS):
+    """(codewords, float64 channel LLRs) of one BP_CASES entry: n random
+    codewords, BPSK over AWGN at snr_db, drawn from a generator seeded by
+    z."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(z)
+    sigma2 = 1.0 / 10 ** (snr_db / 10)
+    xs = np.asarray(code.encode(jnp.asarray(
+        rng.integers(0, 2, (n, code.K)))))
+    llr = 2.0 / sigma2 * ((1.0 - 2.0 * xs) +
+                          rng.normal(0, np.sqrt(sigma2), xs.shape))
+    return xs, llr
+
+
+def oracle_decode(code, llr: np.ndarray, max_iters: int, dectype: str):
+    """The C++ float64 oracle on every row of llr: (app, iterations)."""
+    with ThreadPoolExecutor(min(16, os.cpu_count() or 1)) as ex:
+        refs = list(ex.map(
+            lambda l: code.decode_ref(l, max_iters, dectype), llr))
+    return (np.stack([r[0] for r in refs]),
+            np.array([r[1] for r in refs]))
+
+
+def compare_with_oracle(app, it, app_ref, it_ref, max_iters: int) -> dict:
+    """Word-by-word agreement of a BP decode with the oracle's.
+
+    Words the oracle converges on (iterations < max_iters) are held to
+    identical decisions and iteration counts. The words that run to the
+    limit are counted apart: the oracle satisfies no parity there, and its
+    last iterate is not a codeword."""
+    conv = it_ref < max_iters
+    dec = np.any((app < 0) != (app_ref < 0), axis=1)
+    d_it = np.abs(np.asarray(it) - it_ref)
+    return {"oracle_converged_words": int(conv.sum()),
+            "decision_mismatch_words": int(np.sum(dec & conv)),
+            "iteration_mismatch_words": int(np.sum((d_it > 0) & conv)),
+            "max_iteration_diff": int(d_it[conv].max(initial=0)),
+            "oracle_limit_words": np.flatnonzero(~conv).tolist(),
+            "limit_words_also_at_limit": int(np.sum(
+                ~conv & (np.asarray(it) >= max_iters))),
+            "limit_words_decided_differently": np.flatnonzero(
+                dec & ~conv).tolist()}
+
+
 def phase_bp_oracle():
     """bp_decode against the C++ float64 oracle on 128 codewords per case,
-    a little above each code's waterfall, where the oracle decodes every
-    codeword: decisions must be identical. (Below that, a decode that never
-    satisfies parity runs a chaotic iteration to its limit, and float32
-    and float64 part ways there.) Iteration counts may differ by one on at
-    most 1% of codewords, because the float32 decode and the float64
+    near each code's waterfall. On every word the oracle converges on, the
+    decisions must be identical, and the iteration counts may differ by
+    one on at most 1% of those words: the float32 decode and the float64
     oracle can meet the all-checks-satisfied test one iteration apart when
-    a message sits at the edge of its sign."""
+    a message sits at the edge of its sign. The words that run to the
+    iteration limit are reported apart (PERF.md, open questions)."""
     import jax.numpy as jnp
     from ldpc_sparc_tpu.models.ldpc import get_code
-    n, max_iters = BP_WORDS, 100
     out = {}
     for std, rate, z, snr_db in BP_CASES:
         code = get_code(std, rate, z)
-        rng = np.random.default_rng(z)
-        sigma2 = 1.0 / 10 ** (snr_db / 10)
-        xs = np.asarray(code.encode(jnp.asarray(
-            rng.integers(0, 2, (n, code.K)))))
-        llr = 2.0 / sigma2 * ((1.0 - 2.0 * xs) +
-                              rng.normal(0, np.sqrt(sigma2), xs.shape))
+        xs, llr = bp_case(code, z, snr_db)
         for dectype in ("sumprod2", "minsum"):
-            res = code.decode(jnp.asarray(llr, jnp.float32), max_iters,
+            res = code.decode(jnp.asarray(llr, jnp.float32), BP_MAX_ITERS,
                               dectype)
-            app, it = np.asarray(res.app), np.asarray(res.iterations)
-            with ThreadPoolExecutor(min(16, os.cpu_count() or 1)) as ex:
-                refs = list(ex.map(
-                    lambda l: code.decode_ref(l, max_iters, dectype), llr))
-            app_ref = np.stack([r[0] for r in refs])
-            it_ref = np.array([r[1] for r in refs])
-            ref_errs = int(np.sum(np.any((app_ref < 0) != xs.astype(bool),
-                                         axis=1)))
-            words = int(np.sum(np.any((app < 0) != (app_ref < 0), axis=1)))
-            d_it = np.abs(it - it_ref)
-            it_mis = int(np.sum(d_it > 0))
+            app_ref, it_ref = oracle_decode(code, llr, BP_MAX_ITERS, dectype)
             key = f"{std}_{rate}_z{z}_{dectype}"
-            out[key] = {"snr_db": snr_db, "words": n,
-                        "decision_mismatch_words": words,
-                        "iteration_mismatch_words": it_mis,
-                        "max_iteration_diff": int(d_it.max()),
-                        "oracle_block_errors": ref_errs,
-                        "mean_iterations": float(it_ref.mean())}
-            check(ref_errs == 0, f"{key}: the oracle failed on {ref_errs} "
-                  f"codewords; this operating point is below the waterfall")
-            check(words == 0, f"{key}: {words} codewords decided differently")
-            check(d_it.max() <= 1 and it_mis <= 0.01 * n,
-                  f"{key}: iteration mismatches {out[key]}")
+            out[key] = cmp = {"snr_db": snr_db, "words": BP_WORDS,
+                              "mean_oracle_iterations": float(it_ref.mean()),
+                              **compare_with_oracle(
+                                  np.asarray(res.app),
+                                  np.asarray(res.iterations), app_ref,
+                                  it_ref, BP_MAX_ITERS)}
+            conv = cmp["oracle_converged_words"]
+            check(conv >= 64, f"{key}: the oracle converged on only {conv} "
+                  f"codewords; this point is below the waterfall")
+            check(cmp["decision_mismatch_words"] == 0,
+                  f"{key}: converged codewords decided differently {cmp}")
+            check(cmp["max_iteration_diff"] <= 1 and
+                  cmp["iteration_mismatch_words"] <= 0.01 * conv,
+                  f"{key}: iteration mismatches {cmp}")
     return out
+
+
+def phase_repeatability():
+    """The fixed-order segment sums (ops/segments.py) give the same bits
+    run after run: a BP batch (the campaign code, 512 words at 1.5 dB)
+    decoded three times, and the SC decode-wave design's forward and
+    adjoint products (several blocks per row and column) three times.
+    With jax.ops.segment_sum (a scatter-add) the BP runs differ on the
+    GPU."""
+    import jax
+    import jax.numpy as jnp
+    from ldpc_sparc_tpu.config import SparcParams
+    from ldpc_sparc_tpu.models.ldpc import get_code
+    from ldpc_sparc_tpu.ops.transforms import SparcDesign
+    std, rate, z, ptype = CAMPAIGN_CODE
+    code = get_code(std, rate, int(z), ptype)
+    _, llr = bp_case(code, int(z), 1.5, CAMPAIGN_BATCH)
+    llr = jnp.asarray(llr, jnp.float32)
+    runs = [code.decode(llr, 200, "sumprod2") for _ in range(3)]
+    bp_same = all(np.array_equal(np.asarray(r.app), np.asarray(runs[0].app))
+                  and np.array_equal(np.asarray(r.iterations),
+                                     np.asarray(runs[0].iterations))
+                  for r in runs[1:])
+    d = SparcDesign.for_params(SparcParams(**SC_WAVE), 1.0, seed=0)
+    rng = np.random.default_rng(4)
+    beta = jnp.asarray(rng.standard_normal((4, d.LM)), jnp.float32)
+    zz = jnp.asarray(rng.standard_normal((4, d.n)), jnp.float32)
+    ab, az = jax.jit(d.ab), jax.jit(d.az)
+    outs = [(np.asarray(ab(beta)), np.asarray(az(zz))) for _ in range(3)]
+    sc_same = all(np.array_equal(o[0], outs[0][0]) and
+                  np.array_equal(o[1], outs[0][1]) for o in outs[1:])
+    check(bp_same, "BP decodes of one batch differ between runs")
+    check(sc_same, "SC design products differ between runs")
+    return {"bp_batch_runs_identical": bp_same,
+            "bp_mean_iterations": float(np.mean(
+                np.asarray(runs[0].iterations))),
+            "sc_design_blocks": int(d.E),
+            "sc_products_runs_identical": sc_same}
 
 
 def phase_sparc():
@@ -499,6 +568,7 @@ def main(argv=None) -> int:
             ("denoiser", phase_denoiser),
             ("ldpc_encode", phase_ldpc_encode),
             ("bp_vs_oracle", phase_bp_oracle),
+            ("repeatability", phase_repeatability),
             ("sparc", phase_sparc),
             ("ldpc_campaign_cli", phase_campaign),
             ("concat", phase_concat),

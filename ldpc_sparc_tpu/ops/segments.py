@@ -2,7 +2,9 @@
 
 `jax.ops.segment_sum` lowers to a scatter-add. XLA's GPU scatter-add
 accumulates with atomics, so the order in which float terms meet, and with
-it the last bits of every sum, can change from run to run. Every segment sum
+it the last bits of every sum, changes from run to run (on an H100 the same
+BP batch decoded three times gave different APP bits, and a packed concat
+decode differed from vmap(decode) in 107 bits). Every segment sum
 in this package has a membership known before tracing (the Tanner graph's
 edges, the design's nonzero blocks), so it is written instead as a gather of
 each segment's members, padded to the largest segment and added in a fixed

@@ -58,3 +58,36 @@ def test_dft_reference_matches_design():
                              chip_smoke.dft_ref(d, v, adjoint=False)) < 1e-5
     assert chip_smoke.relerr(d.az(jnp.asarray(z)),
                              chip_smoke.dft_ref(d, z, adjoint=True)) < 1e-5
+
+
+def test_compare_with_oracle_splits_limit_words():
+    """Converged words are held to decisions and iterations; words the
+    oracle runs to the limit are listed apart, whatever the decode did."""
+    app_ref = np.array([[1.0, -2.0], [3.0, 4.0], [-1.0, 1.0], [2.0, 2.0]])
+    it_ref = np.array([3, 100, 100, 0])
+    app = np.array([[0.5, -1.0], [3.0, 4.0], [1.0, 1.0], [2.0, -0.1]])
+    it = np.array([3, 100, 40, 1])
+    got = chip_smoke.compare_with_oracle(app, it, app_ref, it_ref, 100)
+    assert got == {"oracle_converged_words": 2,
+                   "decision_mismatch_words": 1,
+                   "iteration_mismatch_words": 1,
+                   "max_iteration_diff": 1,
+                   "oracle_limit_words": [1, 2],
+                   "limit_words_also_at_limit": 1,
+                   "limit_words_decided_differently": [2]}
+
+
+def test_bp_case_matches_the_xla_decode_and_oracle_on_converged_words():
+    """The smoke's BP comparison at a small code on the CPU: every word the
+    oracle converges on gets its decisions and iteration count."""
+    from ldpc_sparc_tpu.models.ldpc import get_code
+    code = get_code("802.16", "1/2", 24)
+    xs, llr = chip_smoke.bp_case(code, 24, 1.5, n=24)
+    assert xs.shape == llr.shape == (24, code.N)
+    res = code.decode(jnp.asarray(llr, jnp.float32), 50, "sumprod2")
+    app_ref, it_ref = chip_smoke.oracle_decode(code, llr, 50, "sumprod2")
+    got = chip_smoke.compare_with_oracle(
+        np.asarray(res.app), np.asarray(res.iterations), app_ref, it_ref, 50)
+    assert got["oracle_converged_words"] > 12
+    assert got["decision_mismatch_words"] == 0
+    assert got["iteration_mismatch_words"] == 0

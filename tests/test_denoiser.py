@@ -10,8 +10,9 @@ from ldpc_sparc_tpu.ops.denoiser import mmse_denoise
 @pytest.mark.parametrize("L,M", [(8, 128), (4, 256)])
 def test_mmse_denoise_matches_f64_softmax(L, M):
     """Per-section posterior means agree with a float64 softmax to 1e-6
-    (absolute, on probabilities), and the per-section energy statistic
-    the AMP psi update reads agrees with its float64 value."""
+    (absolute, on probabilities); so do the per-section energies
+    sum_m p_m^2 and the AMP psi statistic of one column block,
+    psi = 1 - (sum of the energies) / L (models/sparc.py:col_energy)."""
     from chip_smoke import softmax_ref
     rng = np.random.default_rng(L * M)
     tau = 0.3
@@ -22,6 +23,10 @@ def test_mmse_denoise_matches_f64_softmax(L, M):
     got = np.asarray(mmse_denoise(jnp.asarray(s), jnp.float32(1.0 / tau), M))
     want = softmax_ref(s, 1.0 / tau, M)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(
-        np.sum(got.reshape(2, L, M) ** 2, axis=-1),
-        np.sum(want.reshape(2, L, M) ** 2, axis=-1), rtol=1e-5, atol=1e-7)
+    energy = np.sum(got.reshape(2, L, M) ** 2, axis=-1)
+    energy_ref = np.sum(want.reshape(2, L, M) ** 2, axis=-1)
+    np.testing.assert_allclose(energy, energy_ref, rtol=1e-5, atol=1e-7)
+    psi = 1.0 - np.sum(energy, axis=-1, dtype=np.float32) / L
+    np.testing.assert_allclose(psi, 1.0 - energy_ref.sum(axis=-1) / L,
+                               rtol=0, atol=1e-6)
+    assert np.all(psi > 1e-3)        # a noisy point: psi is not trivially 0
